@@ -1,6 +1,6 @@
 // CPU baseline comparator: an independent C++ implementation of the
 // reference's algorithm (AlgoLab/shark) used by bench.py as the
-// "16-thread CPU shark" stand-in that the TPU framework must beat.
+// "16-thread CPU shark" stand-in that the device pipeline is compared with.
 //
 // Algorithm semantics follow the reference behavior documented in SURVEY.md:
 //   - canonical k-mer = min(packed, revcomp) over all-ACGT windows
@@ -170,7 +170,7 @@ struct GeneState {
 // Classify one read; returns number of associations emitted. When `out`
 // is non-null, also appends the winning gene ids (ascending — std::map
 // iteration order) so a full-sample association dump can be compared
-// against the TPU pipeline's ssv, not just the counts.
+// against the device pipeline's ssv, not just the counts.
 static int classify(const Index& ix, const std::string& seq, int k, double c,
                     std::vector<uint16_t>* out = nullptr) {
   int len = 0;
@@ -239,7 +239,7 @@ int main(int argc, char** argv) {
   auto t1 = std::chrono::steady_clock::now();
 
   // Load all reads up front, fusing pairs and applying quality masking, so
-  // classify timing is pure compute (favors the baseline: the TPU side is
+  // classify timing is pure compute (favors the baseline: the device side is
   // timed end-to-end including host parse + encode + mask).
   auto load = [](const char* path, std::vector<std::string>& seqs,
                  std::vector<std::string>& quals) {

@@ -1,13 +1,12 @@
 """The single-gather "fast" classify kernel — a documented NEGATIVE result,
 quarantined out of the production module.
 
-Measured on v5e (bench/profile_kernel.py, docs/PERF.md): the classic
-two-gather kernel beats this single-gather layout in BOTH miss-heavy and
-hit-heavy regimes — the expensive gather is the GiB-scale probe table
-(identical in both), the gene table is small enough to cache, and this
-kernel's needy-probe compaction sort + index shuffles cost more than the
-gather they avoid (~30% slower end to end). Kept here, runnable, for A/B on
-future hardware generations with cheaper gathers; semantics are still exact
+On the previous accelerator the classic two-gather kernel beat this
+single-gather layout in BOTH miss-heavy and hit-heavy regimes — the
+expensive gather is the GiB-scale probe table (identical in both), the gene
+table is small enough to cache, and this kernel's needy-probe compaction
+sort + index shuffles cost more than the gather they avoid. Not yet
+measured on the GPU. Kept here, runnable, for that A/B; semantics are still exact
 (tests/test_classify_device.py exercises equality vs the classic kernel).
 
 Target semantics: reference bloomfilter.h:78-102 + ReadAnalyzer.hpp:39-110.

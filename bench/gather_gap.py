@@ -1,6 +1,7 @@
-"""Why does the production hashed kernel's bucket gather run at ~125M
-rows/s when the standalone microbench (bench/hash_gather_bench.py) gathers
-the same row width at ~200-230M rows/s on 16-34MB tables?
+"""Why can the production hashed kernel's bucket gather run slower than the
+standalone microbench (bench/hash_gather_bench.py) gathering the same row
+width on 16-34MB tables? (It did on the previous accelerator; not yet
+measured on the GPU.)
 
 Isolates one variable per case at the PRODUCTION shape (B=65536, Ls=88,
 N=5.77M probes; the standalone bench used flat N=4.2M):

@@ -1,15 +1,16 @@
-"""Microbenchmark for the hashed-probe-table design (round 2).
+"""Microbenchmark for the hashed-probe-table design.
 
 Decides whether ONE gather into an O(n_set)-sized bucket table can beat the
 current TWO gathers (8B rows into the 2 GiB bf_rank table + gene rows).
-Measures, in one TPU session (cross-session numbers vary +-40%):
+Measures, in one process on the serving device (compare layouts only
+within one run):
 
   A. bucket-row gather rate vs row width (16/32/64/128B) and table size
      (16MB..1GB) — the hashed kernel's single probe;
   B. the current layouts for an in-session baseline: 8B rows on 2GiB
      ([n,2] u32 and flat u64), and 4B gene-ish rows on a small table;
   C. the per-batch coverage sort at candidate widths;
-  D. the VPU cost of the 8-entry bucket match+select.
+  D. the elementwise cost of the 8-entry bucket match+select.
 """
 
 import os

@@ -1,8 +1,8 @@
 """Host ingest ceiling: NativeStream parse+encode throughput, no device.
 
-The replicated-index data-parallel design scales reads/s linearly in
-chips until host ingest saturates; with the single-chip kernel at ~1.25M
-reads/s, the parser's rate decides how many chips one host can feed.
+The replicated-index data-parallel design scales reads/s with devices
+until host ingest saturates, so the parser's rate decides how many devices
+one host can feed.
 Measures: pull rate through the full ring (parse -> encode/pack ->
 shk_next copy), and the parse-only rate (release without encoding is not
 separable through the ABI, so parse-only is approximated by a pack_mode=0

@@ -1,6 +1,6 @@
 """Device-side stage profiling for the classify kernel (fetch-timed).
 
-Run on the real TPU: python bench/profile_kernel.py [B] [L]
+Run on the GPU: python bench/profile_kernel.py [B] [L]
 Requires bench/.cache/index.npz (created by bench.py).
 """
 

@@ -1,8 +1,8 @@
 """Microbench for the transcriptome-scale classic path's two pain points.
 
-1. The [B,Ls] gene-row gather on a multi-GB gene_mat runs ~10-20x slower
-   than the same row count on MB-scale tables (docs/PERF.md r2 note).
-   Hypotheses: per-ELEMENT issue cost explodes past the 64MB cliff (17
+1. The [B,Ls] gene-row gather on a multi-GB gene_mat ran an order of
+   magnitude slower than the same row count on MB-scale tables on the
+   previous accelerator; not yet measured on the GPU. Hypotheses: per-ELEMENT issue cost explodes past the 64MB cliff (17
    u16 elements/row), vs per-row cost. Sweep element count x table size.
 2. Sort dtype: does sorting u16 keys beat u32 at the same width? (The
    finish sort dominates tie-heavy batches; panel-scale keys fit u16.)

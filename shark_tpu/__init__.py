@@ -1,4 +1,4 @@
-"""shark-tpu: TPU-native mapping-free gene separation for RNA-Seq reads.
+"""shark-tpu: mapping-free gene separation for RNA-Seq reads on the GPU.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of AlgoLab/shark
 (reference: /root/reference, Denti et al., Bioinformatics 2020): index a set
@@ -6,7 +6,7 @@ of gene sequences as a k-mer Bloom filter with a k-mer -> gene-ID association
 table, then stream FASTQ samples through the index and report, per read, the
 gene(s) it most plausibly originates from.
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
   - the index is a set of dense device arrays (bit-vector, per-word popcount
     rank, CSR association table) instead of succinct rank/select structures;
   - the per-read classification is one jit'd batched function: rolling
@@ -16,7 +16,7 @@ Architecture (TPU-first, not a port):
     union-of-k-length-intervals, which is order-free and vectorizes);
   - scaling is jax.sharding over a device mesh: replicated-index data
     parallelism, or a sharded Bloom filter with all-to-all probe routing
-    when the index exceeds per-chip HBM.
+    when the index exceeds one device's memory.
 """
 
 from shark_tpu.config import SharkConfig

@@ -2,13 +2,12 @@
 
 The classic probe (classify/step.py) pays two dependent random gathers per
 window: an 8-byte (word, rank) row from a table as large as the Bloom
-bit-vector itself (2 GiB at the default -b 1), then a gene row. XLA's
-gather is issue-rate-limited (docs/PERF.md), so halving the number of
-gathered rows — and shrinking the table to the fast-gather regime — is the
-biggest perf lever on the probe path. Measured on v5e
-(bench/hash_gather_bench.py, in-session): 64-byte rows on a 64 MB table
-gather at ~158M rows/s vs ~104M for the 8-byte/2 GiB bf_rank rows, with a
-hard cliff to ~45M rows/s past 64 MB — hence MAX_TABLE_BYTES.
+bit-vector itself (2 GiB at the default -b 1), then a gene row. On the
+previous accelerator XLA's gather was issue-rate-limited, so halving the
+number of gathered rows — and shrinking the table below a throughput cliff
+past 64 MB (bench/hash_gather_bench.py) — was the biggest lever on the
+probe path; hence MAX_TABLE_BYTES. On the GPU the 16 MB panel table fits
+the 50 MB L2; the constants are not yet re-derived there (ROADMAP Speed 4).
 
 This layout keys a bucketed open-addressing table directly on the BLOOM
 POSITION p = XXH64(kmer) % size (reference semantics: bloomfilter.h:88).
@@ -23,14 +22,12 @@ behavior, since colliding k-mers share p and therefore share the entry.
              Two slot widths. When p>>lgB fits 14 bits: 4-byte entries
              packed ONE PER u32 WORD (meta16 << 16 | payload16; degree-2
              and row entries span two adjacent words), giving a
-             [n_buckets, slots] u32 table with slots = 4 or 8. The TPU
-             gather cost is ~linear in ELEMENTS per row (~0.25 ns/element
-             on top of ~2.3 ns/row with flat indices, bench/gather_gap.py),
-             so 4-8 u32 words/bucket gathers ~2x faster than the same
-             bytes as 16 u16 lanes. Otherwise: 8-byte entries (tag<<30,
-             32-bit payload) stored PLANAR ([n, 2, 8]: all meta lanes then
-             all payload lanes — strided lane slices of an interleaved row
-             cost a cross-lane relayout, ~20 ms/batch measured).
+             [n_buckets, slots] u32 table with slots = 4 or 8 (gather
+             cost grew with ELEMENTS per row on the previous accelerator,
+             bench/gather_gap.py, so u32 words beat the same bytes as 16
+             u16 lanes). Otherwise: 8-byte entries (tag<<30, 32-bit
+             payload) stored PLANAR ([n, 2, 8]: all meta lanes then all
+             payload lanes, so a lane slice is contiguous).
              tag 0 empty; 1 = one gene; 2 = TWO genes (payload g0|g1<<16);
              3 = payload = CSR rank, the gene row comes from the classic
              gene_mat/ext_mat tables (degree >= 3, rare — gathered under a
@@ -39,8 +36,8 @@ behavior, since colliding k-mers share p and therefore share the entry.
 One entry per set position, so each probe has AT MOST ONE matching entry —
 the match reduces to one masked sum over the 8 lanes, no ranked select.
 Entries that overflow a bucket's 8 slots (load factor <= 2 keeps this to
-~1e-4 of buckets) go to a small stash compared against every probe on the
-VPU; its size is the next power of two of the actual spill count, so
+~1e-4 of buckets) go to a small stash compared against every probe
+elementwise; its size is the next power of two of the actual spill count, so
 typical indexes pay ~32 lanes. Build declines (caller falls back to the
 classic kernel) when the stash would exceed STASH_CAP — transcriptome-scale
 indexes keep the classic two-gather path.
@@ -72,16 +69,16 @@ BUCKET_SLOTS = 8
 STASH_CAP = 256
 SMALL_STASH = 64  # cap when shrinking below the natural bucket count
 STASH_MIN = 32
-# Measured v5e gather cliff: tables past 64 MB drop from ~158M to ~45M
-# rows/s (bench/hash_gather_bench.py) — never build past it.
+# Table-size budget from the previous accelerator's gather cliff past
+# 64 MB (bench/hash_gather_bench.py). Kept so auto-selection and outputs
+# are unchanged; not yet measured on the GPU (ROADMAP Speed 4).
 MAX_TABLE_BYTES = 64 << 20
 MAX_BUCKETS = MAX_TABLE_BYTES // (8 * BUCKET_SLOTS)
 
 # --- GB-scale "xl" layout (one gather past the 64 MB cliff) -------------
-# The cliff is a WIDE-row effect: narrow rows keep gathering fast at any
-# table size on v5e (bench/txome_gather.py: 2xu32 ~100M rows/s at 2.15 GB,
-# 4xu32 ~92M at 1 GB, while 64 B rows collapse to ~45M). So transcriptome-
-# scale indexes get a 16-byte-row variant: [n_buckets, 4] u32 with the
+# The cliff was a WIDE-row effect: narrow rows kept gathering fast at any
+# table size (bench/txome_gather.py). So transcriptome-scale indexes get a
+# 16-byte-row variant: [n_buckets, 4] u32 with the
 # entry16 word format (4-byte slots, two-word degree-2/row entries), rest
 # narrowed to 13 bits (GB-scale bucket counts make p >> lgB small), and
 # bit 13 of slot 0's meta flagging "this bucket overflowed". Overflowing
@@ -132,7 +129,7 @@ def _set_bit_positions(
     transcriptome scale); the numpy fallback is a chunked little-endian
     unpackbits (~20-25 s there — flatnonzero over the unpacked bools is
     the wall; the prior 32-masked-select + 72M-u64-sort version cost the
-    same, docs/PERF.md "XL build cost")."""
+    same)."""
     from shark_tpu.io.native import set_positions_native
 
     got = set_positions_native(
@@ -147,7 +144,7 @@ def _set_bit_positions(
     if _sys.byteorder != "little":
         # the u8-view + bitorder="little" trick below maps byte order
         # into bit positions and is only correct on little-endian hosts
-        # (every TPU host); the native path above is endian-safe
+        # (x86-64 and aarch64 hosts); the native path is endian-safe
         raise NotImplementedError(
             "pure-Python set-bit extraction requires a little-endian host"
         )
@@ -212,9 +209,9 @@ def build_hashed_index(
     """(table, stash, meta) or None if this index should use the classic
     path (stash overflow at the table-size cap, or rank capacity).
 
-    Bucket layouts, tried fewest-gathered-elements-first (v5e gather cost
-    is ~2.3 ns/row + ~0.25 ns/ELEMENT with flat indices,
-    bench/gather_gap.py, with a hard throughput cliff past 64 MB total):
+    Bucket layouts, tried fewest-gathered-elements-first (gather cost per
+    row and per element, and the cliff past MAX_TABLE_BYTES, come from the
+    previous accelerator; bench/gather_gap.py re-measures them):
 
     - entry16 (one u32 word per entry: tag<<14|rest in the high half,
       payload16 low): [n_buckets, slots] with slots = 4, then 8; a
@@ -223,7 +220,7 @@ def build_hashed_index(
     - entry8 (64-byte planar buckets): 8-byte entries (tag<<30|rest,
       payload32). Needs rest to fit 30 bits.
 
-    The spill stash is a broadcast VPU compare against every probe, so
+    The spill stash is a broadcast compare against every probe, so
     candidates are accepted only while it stays tiny.
     prefer_small=False pins the natural entry8 bucket count (A/B control).
     """
@@ -247,9 +244,8 @@ def build_hashed_index(
     candidates = []  # (entry16, slots, lgB, is_last_of_family)
     if allow16 and prefer_small:
         # 8 slots/bucket only: 4-slot buckets (fewer gathered elements)
-        # measured SLOWER in-kernel despite the element model — table
-        # size/bucket count dominates inside the fused kernel
-        # (bench/ab_packed.py: s8@16MB 76.9ms, s4@32MB 95.5, s4@64MB 84.8)
+        # measured slower in-kernel on the previous accelerator — table
+        # size/bucket count dominated inside the fused kernel
         for slots in (8,):
             lg_cap = int(np.log2(MAX_TABLE_BYTES // (4 * slots)))
             lg_nat = min(max(6, int(np.ceil(np.log2(slots16)))), lg_cap)
@@ -353,9 +349,8 @@ def build_hashed_xl(
     if _native.available():
         # Native fast path: entry streams + bucket fill in one C++ pass
         # (shk_pack_xl; the numpy pack below allocates ~15 fresh
-        # 72M-element temporaries at txome scale, which this host's
-        # page-fault weather turns into 80-97 s — docs/PERF.md "XL build
-        # cost"). Candidate choice is by ACTUAL spill count at each
+        # 72M-element temporaries at txome scale, which a host with slow
+        # page faults turns into minutes). Candidate choice is by ACTUAL spill count at each
         # geometry (try-pack) instead of the numpy path's word-demand
         # bound — both exact; the auto-picked lgB can differ by 1 in a
         # narrow band between the two environments.
@@ -467,8 +462,8 @@ def _pack_table(
 ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """(table, stash_rows) for one (layout, bucket-count) candidate.
 
-    Host-cost discipline (profiled at the 72M-entry xl scale, see
-    docs/PERF.md "XL build cost"): sort ONE u32 key and gather only the
+    Host-cost discipline (profiled at the 72M-entry xl scale): sort ONE
+    u32 key and gather only the
     three arrays the fill needs (bucket/need are re-derived elementwise —
     a 72M random gather costs ~2.6 s, the derivation ~0.3 s), and the
     per-bucket slot offsets come from one maximum.accumulate instead of
@@ -550,11 +545,10 @@ def classify_kernel_hashed(
 ):
     """One bucket gather per window -> at most one entry match -> direct
     (gene << pos_bits | pos) sort keys -> the shared coverage/winner
-    reduction. Bit-exact with the classic kernel by construction. Profiled
-    layout choices (bench/profile_hashed.py, in-session): planar table
-    slicing costs ~1.6 ms/batch vs ~20 ms for strided lane slices of an
-    interleaved row; building keys directly skips the ~17 ms synthetic
-    [B, Ls, D+1] gene-row materialization."""
+    reduction. Bit-exact with the classic kernel by construction. Layout
+    choices: planar table slicing (contiguous lane slices of a row), and
+    keys built directly, which skips a synthetic [B, Ls, D+1] gene-row
+    materialization."""
     L = codes.shape[1]
 
     idx_hi, idx_lo, win_valid = bloom_positions(codes, meta)
@@ -676,13 +670,13 @@ def _xl_side_resolve(
     under the outer cond. A window in need_side matched NOTHING in the
     main row (tag 0), so merging side results is a plain overwrite.
 
-    Cost discipline (bench/profile_xl.py, v5e in-session): every
-    [B, CAP]-row gather/scatter pays the ~8 ns/row ISSUE cost, so the
-    resolve is budgeted in row-ops. The first version spent 62 ms/batch
-    (38% of the xl kernel) on 7 row-ops at CAP=16; this one does 5 at
-    CAP=8 — invalid compaction lanes scatter into a DUMP column that is
-    sliced off, which deletes the two original-value take_along_axis
-    writebacks, and CAP=8 still bounds the Binomial(Ls, ~0.6%) per-read
+    Cost discipline: every [B, CAP]-row gather/scatter pays a per-row
+    issue cost, so the resolve is budgeted in row-ops. The first version
+    spent a large share of the xl kernel on 7 row-ops at CAP=16; this one
+    does 5 at CAP=8 — invalid compaction lanes scatter into a DUMP column
+    that is sliced off, which deletes the two original-value
+    take_along_axis writebacks, and CAP=8 still bounds the Binomial(Ls,
+    ~0.6%) per-read
     side demand far past the max over 64k reads (the full branch keeps
     heavier batches exact)."""
     import jax
@@ -727,7 +721,7 @@ def _xl_side_resolve(
         svalid = scol_s < Ls
         scol = jnp.minimum(scol_s, Ls - 1)
         # (Fusing lo/hi into one 2-element-row gather and (tag,pay) into
-        # one [B,Ls+1,2] scatter measured a 12 ms/batch LOSS — the
+        # one [B,Ls+1,2] scatter lost on the previous accelerator — the
         # interleaved stack/unstack relayouts cost more than the saved
         # per-row issue ops. Separate [B, CAP] ops stay.)
         lo = jnp.take_along_axis(idx_lo, scol, axis=1)

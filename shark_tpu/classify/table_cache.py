@@ -2,8 +2,7 @@
 
 The index itself serializes via --save-index (SharkIndex.save), but the
 DEVICE probe tables were always rebuilt from it at classifier construction
-— ~10 s for the native xl pack at transcriptome scale (docs/PERF.md "XL
-build cost"). This module caches the packed tables next to the index so a
+— ~10 s for the native xl pack at transcriptome scale. This module caches the packed tables next to the index so a
 warm start skips the pack entirely.
 
 Staleness is the failure mode this design is built against (a stale table

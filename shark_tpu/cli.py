@@ -6,9 +6,10 @@ Flag surface and defaults match the reference (argument_parser.hpp:29-174):
 bits; -q minimum base quality; -s single-association mode; -t threads; -v
 verbose. Associations go to stdout as "read_id gene_id" lines.
 
-TPU-specific extras: --batch-size, --max-read-len, --backend, --devices,
---sharded-bf, --save-index/--load-index, --ssv, --resume, --stats-json,
---profile-dir, and the multi-host launch flags.
+Device-execution extras: --batch-size, --max-read-len, --backend,
+--devices, --sharded-bf, --save-index/--load-index, --ssv, --resume,
+--stats-json, --profile-dir, --compile-cache, and the multi-host launch
+flags.
 """
 
 from __future__ import annotations
@@ -16,14 +17,14 @@ from __future__ import annotations
 import argparse
 import sys
 
-from shark_tpu.config import SharkConfig
+from shark_tpu.config import BACKENDS, DEFAULT_COMPILE_CACHE, SharkConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="shark-tpu",
         description=(
-            "Mapping-free gene separation of RNA-Seq reads on TPU: indexes "
+            "Mapping-free gene separation of RNA-Seq reads on a GPU: indexes "
             "reference gene sequences as a k-mer Bloom filter and reports, "
             "for each sample read, the gene(s) it most plausibly comes from."
         ),
@@ -53,22 +54,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "native encode threads; device parallelism is "
                         "--devices (default:1)")
     p.add_argument("-v", "--verbose", action="store_true", help="verbose mode")
-    # TPU-execution extras (no reference analogue)
+    # device-execution extras (no reference analogue)
     p.add_argument("--batch-size", type=int, default=8192,
                    help="reads per device batch (default: 8192)")
     p.add_argument("--max-read-len", type=int, default=0,
                    help="fixed padded (fused) read length; 0 = auto (a "
                         "parse-only pre-scan picks the native engine's "
                         "geometry; set explicitly to skip the scan)")
-    p.add_argument("--backend", default="",
-                   help="jax platform override (e.g. cpu, tpu), or "
+    p.add_argument("--backend", default="", choices=("",) + BACKENDS,
+                   help="jax platform override (gpu, cuda, cpu), or "
                         "'native' for the pure-CPU C++ classify path "
-                        "(no accelerator, no jax)")
+                        "(no accelerator, no jax); default: jax's own "
+                        "choice")
     p.add_argument("--devices", type=int, default=1,
                    help="data-parallel device count (default: 1)")
     p.add_argument("--sharded-bf", action="store_true",
                    help="shard the Bloom filter across the device mesh "
-                        "(for indexes larger than one chip's HBM)")
+                        "(for indexes larger than one device's memory)")
     p.add_argument("--save-index", default="",
                    help="serialize the built index to this .npz path")
     p.add_argument("--load-index", default="",
@@ -87,18 +89,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "not buildable")
     p.add_argument("--profile-dir", default="",
                    help="write a jax.profiler trace to this directory")
-    p.add_argument("--compile-cache", default="~/.cache/shark_tpu/xla",
+    p.add_argument("--compile-cache", default=DEFAULT_COMPILE_CACHE,
                    metavar="DIR",
                    help="persistent XLA compile cache (repeat runs of a "
-                        "geometry skip its jit compile); '' disables")
+                        "geometry skip its jit compile; default: "
+                        ".jax_cache in the checkout); '' disables; "
+                        "JAX_COMPILATION_CACHE_DIR, when set, wins")
     p.add_argument("--resume", action="store_true",
                    help="checkpoint per batch to <ssv>.progress and resume "
                         "an interrupted run from the last checkpoint "
                         "(requires --ssv, --max-read-len, plain outputs)")
     p.add_argument("--stats-json", default="",
                    help="write machine-readable run statistics (reads, "
-                        "associations, phase seconds, reads/s) to this "
-                        "path as one JSON object")
+                        "associations, phase seconds, reads/s, device) to "
+                        "this path as one JSON object")
     # multi-host launch (one process per host; see parallel/distributed.py)
     p.add_argument("--coordinator", default="",
                    help="jax.distributed coordinator address host:port")
@@ -163,13 +167,11 @@ def main(argv=None) -> int:
                 file=sys.stderr,
             )
             return 1
-        if args.backend:
-            # The platform must be pinned BEFORE the distributed runtime
-            # initializes (the env-var spelling is ignored by some plugin
-            # setups; the config knob is authoritative).
-            import jax
+        # The platform must be pinned BEFORE the distributed runtime
+        # initializes.
+        from shark_tpu.pipeline import use_backend
 
-            jax.config.update("jax_platforms", args.backend)
+        use_backend(args.backend)
         from shark_tpu.parallel.distributed import initialize
 
         initialize(args.coordinator, args.num_hosts, args.host_id)

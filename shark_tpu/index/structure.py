@@ -1,4 +1,4 @@
-"""The TPU-native index: dense arrays instead of succinct structures.
+"""The device index: dense arrays instead of succinct structures.
 
 The reference keeps (a) an sdsl bit-vector with rank support, (b) per-set-bit
 gene-ID sets flattened into one uint16 array, and (c) a boundary bit-vector

@@ -1,40 +1,99 @@
 """ctypes bindings for the native host I/O engine (shark_native.cpp).
 
-Compiled on first use with g++ (cached next to the source); every entry
-point has a pure-Python fallback in shark_tpu.io, so absence of a compiler
-degrades performance, not correctness.
+Compiled on first use with g++ into build/ at the root of the checkout,
+under a name keyed on the source, the build command and the host CPU the
+compiler targets (see build_keyed), so a library built from other sources
+or on another machine is never loaded. Every entry point has a pure-Python
+fallback in shark_tpu.io, so absence of a compiler degrades performance,
+not correctness.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import sys
 import threading
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_DIR, "..", "native", "shark_native.cpp")
-_SO = os.path.join(_DIR, "..", "native", "_shark_native.so")
+_SRC = os.path.normpath(os.path.join(_DIR, "..", "native", "shark_native.cpp"))
+BUILD_DIR = os.path.normpath(os.path.join(_DIR, "..", "..", "build"))
+_CMD = [
+    "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+    "-pthread", "-o", "{out}", "{src}", "-lz",
+]
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
-def _build() -> bool:
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        "-pthread", "-o", _SO, _SRC, "-lz",
-    ]
+def _native_target(compiler: str) -> str:
+    """What `-march=native` means on this host: the compiler's version and
+    the target flags it expands to (two builds agree only if both do)."""
     try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        return True
+        ver = subprocess.run(
+            [compiler, "--version"], capture_output=True, text=True
+        ).stdout
+        cc1 = subprocess.run(
+            [compiler, "-march=native", "-E", "-v", "-x", "c++", "-"],
+            input="", capture_output=True, text=True,
+        ).stderr
+    except OSError:
+        return ""
+    flags = [ln for ln in cc1.splitlines() if "-march=" in ln and "cc1" in ln]
+    # the cc1 line also names this run's temporary files; keep the flags
+    words = flags[0].split() if flags else []
+    return ver + " ".join(w for w in words if w.startswith("-m"))
+
+
+def build_key(src: str, cmd: List[str]) -> str:
+    """Content key of a native build: source bytes, build command and, for
+    -march=native builds, the host target the compiler resolves."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update("\0".join(cmd).encode())
+    if "-march=native" in cmd:
+        h.update(_native_target(cmd[0]).encode())
+    return h.hexdigest()[:16]
+
+
+def build_keyed(src: str, out_dir: str, stem: str, suffix: str,
+                cmd: List[str]) -> Optional[str]:
+    """Path of `src` built with `cmd` ("{out}"/"{src}" placeholders) as
+    out_dir/<stem>-<key><suffix>, compiling it first if that file does not
+    exist; None if the compiler fails. The build writes a private name and
+    renames it into place, so concurrent processes never load a torn file."""
+    key = build_key(src, cmd)
+    out = os.path.join(out_dir, f"{stem}-{key}{suffix}")
+    if os.path.exists(out):
+        return out
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    argv = [a.format(out=tmp, src=src) for a in cmd]
+    try:
+        subprocess.run(argv, check=True, capture_output=True)
     except (OSError, subprocess.CalledProcessError) as e:
-        print(f"[shark-tpu] native build failed: {e}", file=sys.stderr)
-        return False
+        err = getattr(e, "stderr", b"") or b""
+        print(
+            f"[shark-tpu] native build failed: {e}\n{err.decode()[-2000:]}",
+            file=sys.stderr,
+        )
+        return None
+    os.replace(tmp, out)
+    return out
+
+
+def library_path() -> Optional[str]:
+    """The native library for this source and host, built if needed."""
+    if not os.path.exists(_SRC):
+        return None
+    return build_keyed(_SRC, BUILD_DIR, "_shark_native", ".so", _CMD)
 
 
 def get_lib():
@@ -43,19 +102,11 @@ def get_lib():
     with _lib_lock:
         if _lib is not None:
             return _lib or None
-        try:
-            stale = not os.path.exists(_SO) or os.path.getmtime(
-                _SO
-            ) < os.path.getmtime(_SRC)
-        except OSError:
-            # source missing (prebuilt-.so deployment): use the .so if it
-            # exists; available() must return a bool, never raise
-            stale = not os.path.exists(_SO)
-        if stale:
-            if not _build():
-                _lib = False
-                return None
-        lib = ctypes.CDLL(_SO)
+        so = library_path()
+        if so is None:
+            _lib = False
+            return None
+        lib = ctypes.CDLL(so)
         lib.shk_open.restype = ctypes.c_void_p
         lib.shk_open.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p,

@@ -17,8 +17,9 @@
 // live in a ring so several can be in flight while the device pipeline
 // runs ahead.
 //
-// Build: g++ -O3 -march=native -std=c++17 -shared -fPIC -o _shark_native.so
-//        shark_native.cpp -lz
+// Build: io/native.py compiles it on first use (g++ -O3 -march=native
+//        -std=c++17 -shared -fPIC ... -lz) into build/, keyed on this
+//        source, the command and the host CPU target.
 
 #include <sys/stat.h>
 #include <unistd.h>
@@ -525,7 +526,7 @@ void mask_row(const RecView& r1, const RecView* r2, int min_quality,
 // codes row -> 2-bit packed row + validity bitmask row, PLANAR layout:
 // packed byte j holds positions {j, j+L/4, j+2L/4, j+3L/4} in 2-bit
 // planes, vmask byte j holds positions {j + r*L/8} in bit planes. Planar
-// unpacking is a cheap shift+concat on the TPU (no cross-lane shuffle).
+// unpacking is a cheap shift+concat on the device (no interleave shuffle).
 void pack_row(const uint8_t* codes, int L, uint8_t* packed, uint8_t* vmask) {
   int L4 = L / 4, L8 = L / 8;
   memset(packed, 0, L4);
@@ -916,7 +917,7 @@ void shk_release(void* h, int slot) {
 // paired — FastqSplitter.hpp:63's 'N' junction) over the whole sample,
 // honoring the reference's stop-at-either-EOF pairing. Lets the driver
 // pick the native engine's static batch geometry without a user flag
-// (the reference streams arbitrary lengths; the TPU path needs static
+// (the reference streams arbitrary lengths; the device path needs static
 // shapes). Runs at parse speed — no encode, no batching. Returns the max
 // length (0 = empty sample), -1 = cannot open, -2 = malformed/corrupt.
 long shk_scan_max_fused(const char* fq1, const char* fq2) {
@@ -1063,8 +1064,8 @@ int shk_ring_capacity() { return kRing; }
 //
 // Pure-CPU classification against the dense index arrays — the production
 // no-accelerator path (the jax-on-CPU fallback runs the gather-shaped
-// device kernel ~8x slower than this on the same cores, docs/PERF.md
-// "CPU-backend fallback"). Semantics are the executable spec's
+// device kernel several times slower than this on the same cores).
+// Semantics are the executable spec's
 // (classify/oracle.py = reference ReadAnalyzer.hpp:39-109): canonical
 // k-mers with non-ACGT window restarts, XXH64(8B, seed 0) % size, per-gene
 // cov += min(k, pos - last) with every FIRST hit of a gene contributing k
@@ -1637,8 +1638,8 @@ void shk_build_free(void* h) { delete (BuildResult*)h; }
 // exclusive-prefix-popcount slice of `out`, so the result is identical
 // for any thread count. Serves the hashed/xl table packers
 // (shark_tpu/classify/hashed.py _set_bit_positions): the numpy paths
-// measured 20-25 s at transcriptome scale (72M set bits / 1 GiB vector,
-// docs/PERF.md "XL build cost") vs ~1-2 s here — this is a pure
+// measured 20-25 s at transcriptome scale (72M set bits / 1 GiB vector)
+// vs ~1-2 s here — this is a pure
 // bandwidth scan. Returns the number of positions written (== the
 // vector's total popcount); `out` must hold at least that many u64.
 int64_t shk_set_positions(const uint32_t* words, uint64_t n_words,

@@ -1,7 +1,9 @@
-"""uint64 arithmetic as uint32 limb pairs for TPU.
+"""uint64 arithmetic as uint32 limb pairs.
 
-TPUs execute 32-bit integer ops natively on the VPU; 64-bit integers are
-emulated by XLA (and require jax_enable_x64 globally). We instead represent a
+64-bit integers in jax require jax_enable_x64, which is process-global, and
+the design once targeted an accelerator without 64-bit integer units. The
+GPU has them; whether native u64 pays is ROADMAP Design 4, decided by
+measurement. The limb form is exact on every backend. We represent a
 uint64 value x as a pair of uint32 arrays ``(hi, lo)`` with
 ``x = hi * 2**32 + lo`` and implement exactly the operations the k-mer /
 XXH64 pipeline needs: add, xor/or/and, static shifts, rotations, low-64

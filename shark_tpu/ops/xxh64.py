@@ -11,9 +11,9 @@ len == 8 and seed == 0 the XXH64 algorithm (reference: xxhash.hpp:427-433,
     h  = rotl64(h, 27) * PRIME1 + PRIME4
     h ^= h >> 33;  h *= PRIME2;  h ^= h >> 29;  h *= PRIME3;  h ^= h >> 32
 
-Two implementations: a JAX uint32-limb version for the device path (TPU has
-no native 64-bit integer units) and a vectorized numpy uint64 version for the
-host index builder / oracle. Both are verified against known-answer vectors
+Two implementations: a JAX uint32-limb version for the device path (exact on
+every backend without jax_enable_x64; see ops/u64.py) and a vectorized numpy
+uint64 version for the host index builder / oracle. Both are verified against known-answer vectors
 generated from the reference implementation.
 """
 

@@ -2,10 +2,11 @@
 
 The reference's only parallelism is N worker threads pulling read batches
 from a mutex-guarded queue against one shared in-memory index
-(main.cpp:219-223). The TPU-native equivalent: the index lives replicated in
-every chip's HBM (zero collectives on the probe path) and each batch is
-sharded over the mesh's data axis; XLA partitions the whole classify kernel
-with no communication, so scaling is linear in chips.
+(main.cpp:219-223). The device equivalent: the index lives replicated in
+every device's memory (zero collectives on the probe path) and each batch
+is sharded over the mesh's data axis; XLA partitions the whole classify
+kernel with no communication, so the kernel scales with devices (host
+ingest is shared; ROADMAP Reach 5).
 """
 
 from __future__ import annotations

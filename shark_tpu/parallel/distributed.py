@@ -1,13 +1,13 @@
 """Multi-host deployment helpers.
 
 The reference is single-process shared-memory only (SURVEY.md §2); scaling
-beyond one host is new, TPU-native design:
+beyond one host is new design:
 
 - **Runtime**: `jax.distributed` (one process per host, all hosts join one
   runtime). The replicated-index classifier then runs unchanged — the index
-  is replicated into every local chip's HBM and each host feeds its own
-  chips, with zero collectives on the probe path. The sharded-BF
-  classifier's all_to_all rides ICI within a slice.
+  is replicated into every local device's memory and each host feeds its
+  own devices, with zero collectives on the probe path. The sharded-BF
+  classifier's all_to_all rides NCCL (NVLink within a host).
 - **Input sharding**: by FILE. RNA-Seq samples arrive as (pairs of) FASTQ
   files; each host streams its assigned files through its local chips and
   writes one output part PER FILE PAIR, named by the pair's GLOBAL index

@@ -1,10 +1,11 @@
-"""Sharded-Bloom-filter classification: index larger than one chip's HBM.
+"""Sharded-Bloom-filter classification: index larger than one device.
 
 The reference has no analogue (its index is a single shared-memory
-structure, bloomfilter.h:36-203); this is the TPU-native scale-out design
-from SURVEY.md §5/§7: partition the Bloom address space across the mesh,
-route each probe to the owner chip over ICI with `all_to_all`, and return
-the owner's answer to the read's home chip, where the coverage/winner
+structure, bloomfilter.h:36-203); this is the scale-out design from
+SURVEY.md §5/§7: partition the Bloom address space across the mesh, route
+each probe to the owner device with `all_to_all` (NCCL over NVLink on a
+GPU host), and return the owner's answer to the read's home device, where
+the coverage/winner
 reduction runs exactly as in the replicated path.
 
 Inside one `shard_map` over mesh axis "dp", each device holds
@@ -26,8 +27,8 @@ and one step performs:
   rows, and host-recompute escapes all behave exactly as single-chip)
 
 Both all_to_all rounds move 8 bytes per probe (request: local word + bit;
-reply: tag/payload words) — the measured-fast wire shape (8-byte rows
-gather at ~100-200M rows/s at any scale, docs/PERF.md). An earlier design
+reply: tag/payload words) — the same 8-byte row shape as the classic
+probe's gathers (see step.DeviceIndex). An earlier design
 returned full-width `[cap, D+1]` uint16 gene rows (up to ~130 B/probe at
 D=64) and finished through a separate full-width kernel; the (tag,
 payload) wire cuts reply bytes 8-16x and removes the last back-end fork.
@@ -150,8 +151,8 @@ def shard_owner_local(
     owner is one integer division — the original addressing.
     `wide=True`: the word index stays in (hi, lo) u32 limbs; the owner
     comes from n-1 unrolled 64-bit boundary compares against the constant
-    shard bounds s*wps (pure VPU work — a branchless binary search would
-    need lg(n) per-probe gathers at full per-row issue cost), and the
+    shard bounds s*wps (pure elementwise work — a branchless binary search
+    would need lg(n) per-probe gathers at full per-row cost), and the
     local word is the low limb of word - owner*wps, exact because the
     difference is < wps < 2^31. This lifts the 2^36-bit global ceiling of
     the int32 front end (reference -b is unbounded,

@@ -1,12 +1,13 @@
 """Non-skippable native build gate.
 
-Round 3 shipped an uncompilable shark_native.cpp and NOTHING failed: every
-native test skips behind `skipif(not native.available())`, ci.sh passed on
-the Python fallback, and the bench silently measured the wrong path (see
-VERDICT.md round 3). The reference's analogue is trivial — `make` fails
-loudly (reference Makefile:1-3). This test is that loud failure: when a
-compiler is present, the native engine MUST build. No skipif on
-availability — a compile regression fails the fast suite.
+An uncompilable shark_native.cpp once failed nothing: every native test
+skips behind `skipif(not native.available())`, ci.sh passed on the Python
+fallback, and the bench silently measured the wrong path. The reference's
+analogue is trivial — `make` fails loudly (reference Makefile:1-3). This
+test is that loud failure: when a compiler is present, the native engine
+MUST build. No skipif on availability — a compile regression fails the
+fast suite. The built library is keyed on its source, build command and
+host target, so a library built elsewhere is never loaded.
 """
 
 import os
@@ -50,4 +51,70 @@ def test_native_engine_available():
     assert native.available(), (
         "native engine failed to build/load with g++ on PATH — run "
         "`g++ -fsyntax-only shark_tpu/native/shark_native.cpp` for details"
+    )
+
+
+def _need_gxx():
+    if shutil.which("g++") is None:
+        import pytest
+
+        pytest.skip("no g++ on PATH (compiler-less deployment)")
+
+
+def test_native_library_is_content_keyed():
+    """The loaded library lives in build/ under the key of the committed
+    source and build command; the old fixed name next to the source, or a
+    library keyed on other content, is never what library_path() returns."""
+    _need_gxx()
+    from shark_tpu.io import native
+
+    so = native.library_path()
+    key = native.build_key(native._SRC, native._CMD)
+    assert so == os.path.join(
+        native.BUILD_DIR, f"_shark_native-{key}.so"
+    )
+    assert os.path.exists(so)
+    assert not so.startswith(os.path.dirname(native._SRC))
+
+
+def test_build_keyed_rebuilds_on_new_content(tmp_path):
+    """A changed source or build command yields a new name (and a build);
+    an existing file under another key — a stale or foreign build — is
+    ignored."""
+    _need_gxx()
+    from shark_tpu.io import native
+
+    src = tmp_path / "k.cpp"
+    src.write_text('extern "C" int k() { return 1; }\n')
+    cmd = ["g++", "-O1", "-shared", "-fPIC", "-o", "{out}", "{src}"]
+    out_dir = str(tmp_path / "build")
+    foreign = tmp_path / "build" / "lib-0000000000000000.so"
+    foreign.parent.mkdir()
+    foreign.write_bytes(b"not a library")
+
+    a = native.build_keyed(str(src), out_dir, "lib", ".so", cmd)
+    assert a is not None and a != str(foreign)
+    assert os.path.exists(a)
+    mtime = os.path.getmtime(a)
+    assert native.build_keyed(str(src), out_dir, "lib", ".so", cmd) == a
+    assert os.path.getmtime(a) == mtime  # reused, not rebuilt
+
+    src.write_text('extern "C" int k() { return 2; }\n')
+    b = native.build_keyed(str(src), out_dir, "lib", ".so", cmd)
+    c = native.build_keyed(str(src), out_dir, "lib", ".so", cmd[:1] + ["-O2"] + cmd[2:])
+    assert len({a, b, c}) == 3
+    assert all(os.path.exists(p) for p in (b, c))
+    assert not any(n.endswith(".tmp") for n in os.listdir(out_dir))
+
+
+def test_native_key_covers_host_target():
+    """-march=native builds fold the compiler's resolved host target into
+    the key: the same source built for another CPU gets another name."""
+    _need_gxx()
+    from shark_tpu.io import native
+
+    target = native._native_target("g++")
+    assert "-march=" in target
+    assert native.build_key(native._SRC, native._CMD) != native.build_key(
+        native._SRC, [a for a in native._CMD if a != "-march=native"]
     )

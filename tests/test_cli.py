@@ -122,6 +122,10 @@ def test_stats_json_flag(tmp_path, capsys):
     assert st["n_associations"] == 1  # only r0 maps to g0
     assert st["n_genes"] == 1
     assert st["reads_per_sec"] > 0
+    # the device the run used, as jax reports it
+    assert st["device"]["platform"] == "cpu"
+    assert st["device"]["count"] == 1
+    assert st["device"]["kind"]
     ssv = (tmp_path / "o.ssv").read_text()
     assert ssv == "r0 g0\n"
 
@@ -158,6 +162,107 @@ def test_compile_cache_flag():
         ["-r", "g.fa", "-1", "s.fq", "--compile-cache", ""]
     )
     assert config_from_args(args).compile_cache == ""
-    # default on
+    # default on, at the fixed path inside the checkout
+    from shark_tpu.config import DEFAULT_COMPILE_CACHE
+
     args = build_parser().parse_args(["-r", "g.fa", "-1", "s.fq"])
-    assert config_from_args(args).compile_cache
+    assert config_from_args(args).compile_cache == DEFAULT_COMPILE_CACHE
+    assert SharkConfig().compile_cache == DEFAULT_COMPILE_CACHE
+
+
+def _recorded_updates(monkeypatch):
+    """Record jax.config.update calls instead of applying them."""
+    import jax
+
+    calls = []
+    monkeypatch.setattr(jax.config, "update", lambda k, v: calls.append(k))
+    return calls
+
+
+def test_compile_cache_env_var_wins(tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, jax reads it itself and the
+    program sets no cache directory in code, whatever --compile-cache says."""
+    from shark_tpu.config import DEFAULT_COMPILE_CACHE, compile_cache_dir
+    from shark_tpu.pipeline import use_compile_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+    calls = _recorded_updates(monkeypatch)
+    for requested in (DEFAULT_COMPILE_CACHE, str(tmp_path / "flag"), ""):
+        assert compile_cache_dir(requested) is None
+        use_compile_cache(requested)
+    assert "jax_compilation_cache_dir" not in calls
+    assert not (tmp_path / "flag").exists()
+
+
+def test_compile_cache_default_and_disable(tmp_path, monkeypatch):
+    """Without the env var: the default is <checkout>/.jax_cache, an
+    explicit directory overrides it, and '' disables the cache."""
+    import pathlib
+
+    from shark_tpu.config import DEFAULT_COMPILE_CACHE, compile_cache_dir
+    from shark_tpu.pipeline import use_compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    checkout = pathlib.Path(__file__).resolve().parents[1]
+    assert DEFAULT_COMPILE_CACHE == str(checkout / ".jax_cache")
+    assert compile_cache_dir(DEFAULT_COMPILE_CACHE) == DEFAULT_COMPILE_CACHE
+    assert compile_cache_dir("") is None
+    calls = _recorded_updates(monkeypatch)
+    use_compile_cache("")
+    assert calls == []
+    use_compile_cache(str(tmp_path / "mine"))
+    assert calls == ["jax_compilation_cache_dir"]
+    assert (tmp_path / "mine").is_dir()
+
+
+@pytest.mark.parametrize("backend", ["gpu", "cuda", "cpu", "native", ""])
+def test_backend_flag_accepts(backend):
+    cfg = _cfg(BASE + ["--backend", backend])
+    assert cfg.backend == backend
+    cfg.validate()
+
+
+@pytest.mark.parametrize(
+    "backend,platform",
+    [("gpu", "cuda"), ("cuda", "cuda"), ("cpu", "cpu"), ("native", None),
+     ("", None)],
+)
+def test_backend_pins_jax_platform(backend, platform, monkeypatch):
+    """--backend gpu pins jax to CUDA (jax's own "gpu" alias would also
+    demand ROCm); native and "" leave jax's platform choice alone."""
+    import jax
+
+    from shark_tpu.pipeline import use_backend
+
+    calls = []
+    monkeypatch.setattr(
+        jax.config, "update", lambda k, v: calls.append((k, v))
+    )
+    use_backend(backend)
+    assert calls == ([("jax_platforms", platform)] if platform else [])
+
+
+@pytest.mark.parametrize("backend", ["rocm", "metal"])
+def test_backend_flag_rejects_unknown(backend):
+    with pytest.raises(SystemExit):  # argparse choices
+        _cfg(BASE + ["--backend", backend])
+    with pytest.raises(ValueError, match="backend"):
+        SharkConfig(backend=backend).validate()
+
+
+def test_device_info_counts_mesh_devices():
+    """stats["device"] names the platform, kind and the number of devices
+    the classifier runs on: the mesh size for the data-parallel path."""
+    import jax
+
+    from __graft_entry__ import _tiny_index
+    from shark_tpu.classify.step import Classifier
+    from shark_tpu.parallel.data_parallel import DataParallelClassifier
+    from shark_tpu.pipeline import device_info
+
+    index, _ = _tiny_index()
+    dev = jax.devices()[0]
+    want = {"platform": dev.platform, "kind": dev.device_kind}
+    assert device_info(Classifier(index)) == {**want, "count": 1}
+    dp = DataParallelClassifier(index, n_devices=4)
+    assert device_info(dp) == {**want, "count": 4}
